@@ -36,6 +36,9 @@ def main():
     from theano_pyglm_tpu import Population, make_model
     from theano_pyglm_tpu.inference.mcmc import _run_chunk, init_mcmc_state, make_sweep
     from theano_pyglm_tpu.utils.diagnostics import ess
+    from theano_pyglm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     pop = Population(make_model("distance_weighted_model", args.N))
     true = pop.sample(jax.random.PRNGKey(0))

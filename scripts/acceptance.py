@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Run the five BASELINE.json acceptance configs end-to-end and emit a JSON
-report. Full scale by default (TPU); ``--quick`` shrinks sizes for a CPU
-smoke pass.
+report. Full scale by default (run it on a GPU); ``--quick`` shrinks sizes
+for a CPU smoke pass.
 
   1. single-neuron standard GLM, 60 s @ 1 ms, MAP
   2. N=10 Erdős–Rényi network, sparse MAP + cross-validated λ
@@ -42,6 +42,9 @@ def main():
     from theano_pyglm_tpu.inference.smart_init import smart_initialize
     from theano_pyglm_tpu.parallel import gibbs_sample_chains
     from theano_pyglm_tpu.utils.diagnostics import summarize_chains
+    from theano_pyglm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     report = {}
     rng = np.random.RandomState(0)
@@ -91,7 +94,7 @@ def main():
     # Identifiable planted weights (|W|=2.5 on the sampled ER edges): a
     # prior draw W ~ N(0,2) leaves about half the edges statistically
     # undetectable at this T, which turns the xv score flat and the support
-    # metric meaningless (ROUND2.md item 5).
+    # metric meaningless.
     #
     # T = 240k (4 min @ 1 ms): measured per-edge information at T=30k gives
     # true-edge Wald z of only 0.4-4.6 (NOT the z~25 a dense-design estimate
@@ -243,7 +246,7 @@ def main():
     T4 = 3_000 if q else 60_000
     N4 = 16
     spec4 = make_model("sbm_weighted_model", N4)
-    # recipe validated this round (see ROUND2.md item 4): ~18 Hz rates and
+    # recipe validated at full scale: ~18 Hz rates and
     # fixed-magnitude planted weights make every edge statistically
     # identifiable at this T, so block recovery tests the sampler rather
     # than the data's information content
@@ -278,15 +281,15 @@ def main():
     # keys hit 1.0 (a self-consistent partial type assignment: wrong types
     # bias the block prior on A rows, the mis-inferred rows keep the types
     # wrong). Tempering the likelihood over the first half of warmup lets
-    # (A, filters, y) co-mix before the posterior sharpens; validated on
-    # TPU at this exact config: sampler keys {5, 15, 25} all reach ARI 1.0
+    # (A, filters, y) co-mix before the posterior sharpens; validated at
+    # this exact config: sampler keys {5, 15, 25} all reach ARI 1.0
     # (vs {0.749, 1.0, 1.0} without annealing). Four chains make the
     # evidence robust to residual luck: per-chain ARI + cross-chain type
     # agreement are reported, so one parked chain cannot hide.
     # 2000 sampling sweeps so the scored tail half sits PAST the slow mode:
     # with the collapsed type kernel the partial-assignment mode is
     # transient, not absorbing — a windowed-ARI probe (key 5, second data
-    # realization, results/acceptance_r5/sbm_seed_robustness.json) shows
+    # realization, scripts/sbm_seed_robustness.py) shows
     # the slowest chain exiting to ARI 1.0 by sweep ~1000 and staying; at
     # ns=1000 the tail half could still straddle the escape.
     ns4 = 2 * ns

@@ -70,6 +70,9 @@ def main():
     from theano_pyglm_tpu.utils.binning import bin_spikes, native_available
     from theano_pyglm_tpu.utils.io import load_data, segment_data
     from theano_pyglm_tpu.utils.ks import time_rescaling_ks
+    from theano_pyglm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     # --- load + bin ---------------------------------------------------------
     t0 = time.time()

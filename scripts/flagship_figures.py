@@ -14,7 +14,7 @@ writes to ``<resultsDir>/figures/``:
   the true locations with the orthogonal Procrustes solution before
   plotting (``plotting.procrustes_align``; Schönemann 1966).
 
-  python scripts/flagship_figures.py [-r results/rgc_flagship_r3]
+  python scripts/flagship_figures.py [-r results/rgc_flagship]
 """
 import argparse
 import os
@@ -27,7 +27,7 @@ import numpy as np
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--resultsDir", "-r", type=str, default="results/rgc_flagship_r3")
+    p.add_argument("--resultsDir", "-r", type=str, default="results/rgc_flagship")
     p.add_argument("--n_loc_draws", type=int, default=200,
                    help="posterior location draws to scatter (thinned evenly)")
     args = p.parse_args()

@@ -28,7 +28,7 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--resultsDir", "-r", default="results/acceptance_r5")
+    ap.add_argument("--resultsDir", "-r", default="results/acceptance")
     ap.add_argument("--keys", type=int, nargs="*", default=[5, 123, 777])
     args = ap.parse_args()
     q = args.quick
@@ -39,6 +39,9 @@ def main():
     from theano_pyglm_tpu.inference.smart_init import smart_initialize
     from theano_pyglm_tpu.parallel import gibbs_sample_chains
     from theano_pyglm_tpu.utils.diagnostics import adjusted_rand_index
+    from theano_pyglm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     # ---- identical data recipe to scripts/acceptance.py config 4 ----------
     T4 = 3_000 if q else 60_000

@@ -1,110 +1,16 @@
 """Log-joint oracle tests vs an independent pure-numpy implementation.
 
-This is the BASELINE.md acceptance bar: the jitted TPU-path log-joint must
-match a slow numpy reference to 1e-6 (run in float64, SURVEY.md §4/§7).
+This is the BASELINE.md acceptance bar: the jitted log-joint must match a
+slow numpy reference to 1e-6 (run in float64, SURVEY.md §4/§7).
 """
 
 import jax
 import numpy as np
-import scipy.special as sp
-import scipy.stats as st
+import pytest
 
 from theano_pyglm_tpu import Population, make_model
 from theano_pyglm_tpu.inference.map import split_params
-
-
-def _softmax(x, axis=-1):
-    e = np.exp(x - x.max(axis=axis, keepdims=True))
-    return e / e.sum(axis=axis, keepdims=True)
-
-
-def numpy_log_joint(pop, params, data):
-    """Slow, independent numpy implementation of the model density."""
-    spec = pop.spec
-    S = np.asarray(data["S"])
-    T, N = S.shape
-    dt = pop.dt
-    p = {k: np.asarray(v) for k, v in params.items()}
-
-    # --- currents
-    I = np.tile(p["bias"], (T, 1))
-    if "w_stim" in p:
-        I = I + np.asarray(data["X_stim"]) @ p["w_stim"].T
-    if "w_stim_s" in p:
-        X = np.asarray(data["X_st"])
-        I = I + np.einsum("tdb,nd,nb->tn", X, p["w_stim_s"], p["w_stim_t"])
-    w_eff = p["w_ir"]
-    if spec["impulse"]["type"] == "normalized":
-        w_eff = _softmax(w_eff)
-    W = p.get("W")
-    if W is None:
-        W = np.full((N, N), float(spec["network"]["weight"].get("value", 1.0)))
-    G = p["A"] * W
-    # prepare_data centers the design columns; undo it here so the oracle
-    # computes from first principles
-    X_imp = np.asarray(data["X_imp"]) + np.asarray(data["_X_imp_mean"])[None]
-    for n in range(N):
-        for m in range(N):
-            I[:, n] += G[n, m] * (X_imp[:, m, :] @ w_eff[n, m, :])
-
-    # --- likelihood
-    if spec["nlin"]["type"] == "exp":
-        # The model spec is the CLIPPED exp: λ = exp(clip(I, ±40)) with
-        # log λ = clip(I, ±40) on the combined exponent (ops/clipping.py).
-        # The oracle hardcodes the constant independently so a drift of the
-        # library's EXP_CLIP away from the documented spec fails here.
-        Ic = np.clip(I, -40.0, 40.0)
-        rate = np.exp(Ic)
-        log_rate = Ic
-    else:
-        rate = np.logaddexp(0.0, I)
-        log_rate = np.log(rate)
-    if spec["observation"]["type"] == "poisson":
-        ll = S * (log_rate + np.log(dt)) - rate * dt - sp.gammaln(S + 1.0)
-    else:
-        prob = -np.expm1(-np.clip(rate * dt, 1e-10, None))
-        ll = S * np.log(prob) + (1 - S) * (-rate * dt)
-    total = ll.sum()
-
-    # --- priors
-    b = spec["bias"]
-    total += st.norm.logpdf(p["bias"], b["mu"], b["sigma"]).sum()
-    if "w_stim" in p:
-        s = spec["bkgd"]
-        total += st.norm.logpdf(p["w_stim"], s["mu"], s["sigma"]).sum()
-    if "w_stim_s" in p:
-        s = spec["bkgd"]
-        total += st.norm.logpdf(p["w_stim_s"], s["mu"], s["sigma"]).sum()
-        total += st.norm.logpdf(p["w_stim_t"], s["mu"], s["sigma"]).sum()
-    im = spec["impulse"]
-    total += st.norm.logpdf(p["w_ir"], im["mu"], im["sigma"]).sum()
-
-    g = spec["network"]["graph"]
-    if g["type"] == "erdos_renyi":
-        rho = p.get("rho", g.get("rho", 0.2))
-        total += st.bernoulli.logpmf(p["A"].astype(int), rho).sum()
-    elif g["type"] == "sbm":
-        y, pi, Bm = p["y"].astype(int), p["pi"], p["Bm"]
-        K = Bm.shape[0]
-        total += st.dirichlet.logpdf(pi, g["alpha0"] * np.ones(K))
-        total += np.log(pi[y]).sum()
-        total += st.beta.logpdf(Bm, *g.get("B_prior", (1.0, 1.0))).sum()
-        P = Bm[y[:, None], y[None, :]]
-        total += st.bernoulli.logpmf(p["A"].astype(int), P).sum()
-    elif g["type"] == "distance":
-        locs = p["locs"]
-        total += st.norm.logpdf(locs, 0.0, g["sigma_l"]).sum()
-        d2 = ((locs[:, None, :] - locs[None, :, :]) ** 2).sum(-1)
-        P = 1.0 / (1.0 + np.exp(-(g["eta0"] - d2 / g["tau"] ** 2)))
-        total += st.bernoulli.logpmf(p["A"].astype(int), np.clip(P, 1e-12, 1 - 1e-12)).sum()
-
-    w = spec["network"]["weight"]
-    if w["type"] == "gaussian":
-        eye = np.eye(N)
-        MU = w["mu"] * (1 - eye) + w.get("mu_self", w["mu"]) * eye
-        SIG = w["sigma"] * (1 - eye) + w.get("sigma_self", w["sigma"]) * eye
-        total += st.norm.logpdf(p["W"], MU, SIG).sum()
-    return float(total)
+from theano_pyglm_tpu.utils.oracle import central_difference_grad, numpy_log_joint
 
 
 def _setup(name, N, T=400, seed=0):
@@ -256,7 +162,46 @@ def test_streaming_without_time_chunk_raises():
     true = pop.sample(jax.random.PRNGKey(0))
     S, _ = pop.simulate(jax.random.PRNGKey(1), true, 300)
     data = pop.prepare_data(S, materialize_design=False)
-    import pytest as _pytest
 
-    with _pytest.raises(ValueError, match="materialize_design"):
+    with pytest.raises(ValueError, match="materialize_design"):
         pop.log_likelihood(true, data)
+
+
+ZOO = [
+    ("standard_glm", 2),
+    ("spatiotemporal_glm", 2),
+    ("simple_weighted_model", 3),
+    ("sparse_weighted_model", 3),
+    ("sbm_weighted_model", 4),
+    ("distance_weighted_model", 3),
+]
+
+
+@pytest.fixture
+def f32_mode():
+    """The production dtype: float32, x64 off (restored afterwards)."""
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", True)
+
+
+@pytest.mark.parametrize("name,N", ZOO)
+def test_float32_value_and_grad_match_float64_oracle(f32_mode, name, N):
+    """The float32 program against the float64 numpy oracle: value to 1e-5
+    relative, gradient (central differences of the oracle) to 1e-4 rel-L2 —
+    the bar chip_smoke.py holds the card to at full width."""
+    pop, params, data = _setup(name, N, T=1000)
+    opt, frozen = split_params(params)
+    val, grad = jax.jit(jax.value_and_grad(
+        lambda o: pop.log_joint({**frozen, **o}, data)))(opt)
+    host_params = {k: np.asarray(v) for k, v in params.items()}
+    host_data = {k: np.asarray(v) for k, v in data.items()}
+    assert np.asarray(data["S"]).dtype == np.float32
+
+    want = numpy_log_joint(pop, host_params, host_data)
+    assert abs(float(val) - want) <= 1e-5 * max(1.0, abs(want)), (float(val), want)
+
+    coords = [(k, i) for k in sorted(opt) for i in range(min(3, np.size(opt[k])))]
+    fd = central_difference_grad(pop, host_params, host_data, coords)
+    got = np.array([np.ravel(np.asarray(grad[k]))[i] for k, i in coords], np.float64)
+    assert np.linalg.norm(got - fd) <= 1e-4 * np.linalg.norm(fd), (got, fd)

@@ -44,7 +44,7 @@ def _planted(N=16, seed=0, bias_mu=2.5, w_mag=None, Bm_diag=0.7):
     if w_mag is not None:
         # identifiable planted weights: fixed magnitude, random sign (a
         # prior draw W ~ N(0,2) leaves ~half the edges statistically
-        # undetectable at test-scale data — see ROUND2.md item 4)
+        # undetectable at test-scale data)
         W = np.where(rng.rand(N, N) < 0.7, w_mag, -w_mag).astype(np.float32)
         np.fill_diagonal(W, -2.0)
         true["W"] = jnp.asarray(W * A)
@@ -79,7 +79,7 @@ def test_full_pipeline_recovers_planted_partition():
     """spikes → joint (A, W, y, hypers, continuous) inference → block
     recovery with ARI ≥ 0.9 over the posterior tail (VERDICT round-1 §4).
 
-    Config validated on TPU (this exact recipe: ARI 1.0, A err 0.15): N=10,
+    Config validated at full scale (this exact recipe: ARI 1.0, A err 0.15): N=10,
     ~26 Hz, |W|=3 planted edges, 20 s of data, smart init, 150+150 sweeps —
     sized so the CPU x64 suite can afford the full joint run."""
     from theano_pyglm_tpu.inference import gibbs_sample

@@ -1,11 +1,11 @@
-"""theano_pyglm_tpu — a TPU-native network-GLM framework for neural spike trains.
+"""theano_pyglm_tpu — a JAX network-GLM framework for neural spike trains.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 ``slinderman/theano_pyglm`` (Theano-based Bayesian network GLMs for spike
 trains; see SURVEY.md for the full capability inventory). Not a port: the
 reference's tree of symbolic Theano components becomes a pytree of parameters
 plus pure, jit-compiled functions; per-neuron task parallelism becomes ``vmap``
-over the neuron axis; multi-chain MCMC is sharded over TPU chips via
+over the neuron axis; multi-chain MCMC is sharded over accelerator devices via
 ``jax.sharding``.
 
 Layer map (mirrors SURVEY.md §1):

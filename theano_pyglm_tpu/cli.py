@@ -18,6 +18,7 @@ from theano_pyglm_tpu import Population, make_model
 from theano_pyglm_tpu.inference import cross_validate_lambda, gibbs_sample, map_fit, sparse_map_fit
 from theano_pyglm_tpu.inference.smart_init import smart_initialize
 from theano_pyglm_tpu.parallel import gibbs_sample_chains
+from theano_pyglm_tpu.utils.compile_cache import enable_compile_cache
 from theano_pyglm_tpu.utils.io import load_data, parse_cmd_line_args, save_results
 from theano_pyglm_tpu.utils.metrics import MetricsWriter, timer
 
@@ -156,6 +157,7 @@ def main(argv=None):
         return 2
     cmd, rest = argv[0], argv[1:]
     args = parse_cmd_line_args(rest)
+    enable_compile_cache()
     if cmd == "generate":
         return generate_synth_data(args)
     if cmd == "map":

@@ -4,7 +4,7 @@ Rebuild of the reference's coordinate-descent MAP path
 (``pyglm/inference/coord_descent.py``, SURVEY.md §2, §3.2). The reference
 alternates scipy ``fmin_l_bfgs_b`` over (a) per-neuron GLM variables and (b)
 global network variables, each through packed vectors and compiled Theano
-thunks. On TPU both structures collapse: the likelihood factorizes over
+thunks. Under XLA both structures collapse: the likelihood factorizes over
 postsynaptic neurons and the priors are separable, so one joint L-BFGS run on
 the full continuous parameter block *is* the per-neuron coordinate sweep —
 the gradient blocks are independent — and it runs as one fused XLA program
@@ -50,7 +50,8 @@ def lbfgs_minimize(fun, x0, max_iter: int = 500, tol: float = 1e-6):
     """Minimize ``fun`` (pytree -> scalar) with optax L-BFGS + zoom linesearch.
 
     The whole optimization loop runs device-side under ``lax.while_loop`` —
-    the TPU replacement for the reference's scipy ``fmin_l_bfgs_b`` calls.
+    the device-side replacement for the reference's scipy
+    ``fmin_l_bfgs_b`` calls.
     Returns (x_opt, final_value, n_iters).
     """
     opt = optax.lbfgs()

@@ -17,9 +17,9 @@ exactly the textbook exp-Poisson GLM (1e-6 oracle parity holds there; the
 saturated regime is oracle-tested too — tests/test_loglik.py).
 
 Every code path that evaluates the exp-Poisson likelihood MUST use these
-helpers (or EXP_CLIP itself, for Pallas kernels where the helper call is
-inlined): models/components.make_nlin, inference/gibbs.py's birth–death
-fast path and Laplace blocks, ops/pallas_kernels.py, inference/ars.py.
+helpers (or EXP_CLIP itself): models/components.make_nlin,
+inference/gibbs.py's birth–death fast path and Laplace blocks,
+inference/ars.py.
 A hand-duplicated constant that drifts desynchronizes the MH ratios from
 the likelihood the HMC blocks sample — silently breaking exactness in the
 saturated regime.

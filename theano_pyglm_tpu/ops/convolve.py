@@ -3,8 +3,7 @@
 Behavioral equivalent of ``convolve_with_basis`` in the reference's
 ``pyglm/utils/basis.py`` (SURVEY.md §2, §3.2): spike trains / stimuli are
 convolved with each basis column once, up front, to produce fixed design
-tensors that the (jitted) likelihood then contracts with learned weights on
-the MXU.
+tensors that the (jitted) likelihood then contracts with learned weights.
 
 Convention (documented spec, see SURVEY.md §7 "Identifiability conventions"):
 the convolution is **strictly causal** —
@@ -17,16 +16,14 @@ reference's spike-history semantics).
 
 Implemented as a time-blocked im2col einsum: lag windows are materialized per
 block (L static slices of a (C+L-1, N) chunk) and contracted against the
-flipped basis on the MXU. This is the exact same arithmetic as a direct
-convolution, just reordered — NOT an approximation.
+flipped basis. This is the exact same arithmetic as a direct convolution,
+just reordered — NOT an approximation.
 
-Why not ``lax.conv_general_dilated``: on the TPU backend, compiling a 1-D
-conv with spatial length ~60k and kernel length 100–300 (batch 1–27,
-features 1→5) takes **minutes to unbounded** (measured round 4: T=60k/L=100
-and T=10k/L=300 both exceeded a 110-s compile budget; T=60k/L=300 exceeded
-580 s — the round-3 acceptance report's unattributed 110-s config-1
-"simulate_s" was exactly this, hit via the eager path). The blocked einsum
-compiles in ~1 s and runs bandwidth-bound.
+Why not ``lax.conv_general_dilated``: on the accelerator this library was
+first built for, compiling a 1-D conv with spatial length ~60k and kernel
+length 100–300 took minutes or never finished, while the blocked einsum
+compiles quickly. Which of the two is better on the H100 is not measured
+yet (ROADMAP).
 """
 
 from __future__ import annotations

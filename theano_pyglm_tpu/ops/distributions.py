@@ -8,7 +8,7 @@ log-joint, ``sample_*`` built on ``jax.random`` for prior draws and conjugate
 Gibbs updates.
 
 All log-pdfs are written directly in jnp (not jax.scipy wrappers) so the same
-expressions run under float32 on TPU and float64 (``jax_enable_x64``) for the
+expressions run under float32 on the accelerator and float64 (``jax_enable_x64``) for the
 1e-6 CPU verification mode (SURVEY.md §7 "Numerics").
 """
 

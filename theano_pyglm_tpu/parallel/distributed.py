@@ -1,6 +1,6 @@
 """Multi-host (multi-process) distribution — chains over DCN.
 
-TPU-native replacement for the reference's IPython.parallel client/hub/
+The replacement for the reference's IPython.parallel client/hub/
 engine topology (SURVEY.md §5 "Distributed communication backend"): every
 host runs the SAME program, ``jax.distributed`` stitches the processes into
 one global device set, and chain parallelism shards over the *global* 1-D

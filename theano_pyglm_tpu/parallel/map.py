@@ -7,7 +7,7 @@ postsynaptic axis sharded over a device mesh (shard_map objective from
 :mod:`theano_pyglm_tpu.parallel.neurons`): every chip owns N/k neurons'
 parameter rows, gradients stay chip-local, and the only communication is the
 scalar ``psum`` per objective evaluation — one collective per L-BFGS step
-riding ICI.
+over the device interconnect.
 """
 
 from __future__ import annotations

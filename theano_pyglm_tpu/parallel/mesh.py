@@ -1,8 +1,8 @@
-"""Device-mesh helpers — the TPU-native replacement for the reference's
+"""Device-mesh helpers — the replacement for the reference's
 IPython.parallel client/hub/engine layer (SURVEY.md §2 "Distributed backend",
 §5). There is no message-passing runtime to manage: parallel work is
 expressed as sharded arrays over a ``jax.sharding.Mesh`` and XLA inserts the
-ICI collectives.
+collectives.
 
 Two axes of parallelism exist in this model family (SURVEY.md §2):
   'chains'  — embarrassingly parallel MCMC chains (≅ one engine per chain);

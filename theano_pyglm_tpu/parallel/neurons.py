@@ -2,12 +2,12 @@
 
 The reference farms per-neuron GLM subproblems out to IPython.parallel
 engines (``parallel_coord_descent.py``, SURVEY.md §2/§3.2) — legal because
-the likelihood factorizes over *postsynaptic* neurons. The TPU-native
-equivalent shards the postsynaptic axis of the parameters (rows of A, W,
+the likelihood factorizes over *postsynaptic* neurons. The equivalent
+here shards the postsynaptic axis of the parameters (rows of A, W,
 w_ir; entries of bias; rows of w_stim) and of the spike matrix across a
 device mesh: each chip computes its neuron block's likelihood against the
 fully-replicated presynaptic design tensor X_imp, and a single ``psum`` over
-ICI produces the scalar objective. Gradients flow through the same sharding
+the interconnect produces the scalar objective. Gradients flow through the same sharding
 (GSPMD), so one L-BFGS/HMC step *is* the reference's "engines fit their
 neurons, client gathers" round — without a client.
 

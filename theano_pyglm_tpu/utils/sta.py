@@ -1,7 +1,7 @@
 """Spike-triggered averaging (≅ pyglm/utils/sta.py, SURVEY.md §2 "STA init").
 
 Used by smart initialization to seed stimulus filters. Implemented as one
-batched matmul over lagged stimulus windows (MXU-friendly), not a Python loop
+batched matmul over lagged stimulus windows, not a Python loop
 over spikes.
 """
 
